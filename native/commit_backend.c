@@ -1,6 +1,6 @@
 /* Frame commit engine: the serial, context-exact encode pass.
  *
- * The TPU device path (ops/jax_backend.py) evaluates the mode/partition
+ * The device search (ops/jax_backend.py) evaluates the mode/partition
  * search densely over all superblocks of a frame; this engine performs the
  * normative commit walk the wavefront dependency forces to be sequential:
  * intra prediction from reconstructed neighbors, transform/quantize,

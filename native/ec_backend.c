@@ -1,7 +1,7 @@
 /* Native entropy-coding backend: od_ec range encoder + AV1 transform-block
  * symbol encoding with normative context derivation.
  *
- * TPU-native architecture note (SURVEY.md §7): the arithmetic coder is the
+ * Architecture note (SURVEY.md §7): the arithmetic coder is the
  * one inherently serial per-tile component; the reference implements it in
  * C (Source/Lib/Codec/bitstream_unit.c) and so do we. CDF tables live in
  * numpy arrays owned by Python (uint16, C-contiguous); this code adapts them

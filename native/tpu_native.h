@@ -3,7 +3,7 @@
  *
  * The native layer implements the serial, context-dependent parts of the
  * encoder (range coding, normative per-txb transforms, and the frame commit
- * walk) that the TPU device path cannot express efficiently; the dense
+ * walk) that the device search cannot express efficiently; the dense
  * search runs on device (ops/jax_backend.py) and hands decisions to
  * commit_backend.c. Reference counterparts: Source/Lib/Codec/ec_process.c
  * (entropy), coding_loop.c (encode pass), bitstream_unit.c (od_ec).

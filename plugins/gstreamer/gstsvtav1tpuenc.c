@@ -213,7 +213,7 @@ static void gst_svtav1tpuenc_class_init(GstSvtAv1TpuEncClass *klass)
                                               &src_template);
     gst_element_class_set_static_metadata(
         element_class, "svt-av1-psy-tpu encoder", "Codec/Encoder/Video",
-        "TPU-native AV1 encoder (svt-av1-psy-tpu)", "svt-av1-psy-tpu");
+        "AV1 encoder (svt-av1-psy-tpu)", "svt-av1-psy-tpu");
 
     venc_class->set_format = gst_svtav1tpuenc_set_format;
     venc_class->handle_frame = gst_svtav1tpuenc_handle_frame;

@@ -46,6 +46,8 @@ class Encoder:
 
     def __init__(self, cfg: EncoderConfig, width: int, height: int,
                  bit_depth: int | None = None):
+        from svt_av1_psy_tpu.utils.device import configure_compile_cache
+        configure_compile_cache()
         cfg = cfg.replace(source_width=width, source_height=height)
         if bit_depth is not None:
             cfg = cfg.replace(encoder_bit_depth=bit_depth)

@@ -4,7 +4,8 @@ Usage:
     python -m svt_av1_psy_tpu -i in.y4m -b out.ivf [--preset 12] [--crf 35]
         [--gop 0|1|N] [--frames N]
 
-Encodes 4:2:0 y4m to an AV1 IVF stream using the TPU-native encoder.
+Encodes 4:2:0 y4m to an AV1 IVF stream: device search programs (JAX)
+feed native C commit walks on the host.
 Preset routing (the enc_mode_config.c role, at current feature scope):
   preset >= 10 : fast path — dense device mode search + native C commit
                  walk (models/fast_intra.py)
@@ -165,11 +166,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-rows", type=int, default=-1,
                     help="log2 tile rows (-1 = none)")
     ap.add_argument("--no-device-search", action="store_true",
-                    help="disable the TPU open-loop mode search stage")
-    ap.add_argument("--device", default="auto",
-                    choices=("auto", "cpu", "default"),
-                    help="jax platform: auto probes the TPU and falls "
-                         "back to cpu if the transport is wedged")
+                    help="disable the device open-loop mode search stage")
+    ap.add_argument("--device", default=None, choices=("gpu", "cpu"),
+                    help="platform of the device search programs: gpu "
+                         "(the default unless JAX_PLATFORMS names cpu) "
+                         "or cpu. A platform without a device is an "
+                         "error; there is no fallback")
     ap.add_argument("--backend", default="native",
                     choices=("native", "python"))
     ap.add_argument("--rc", type=int, default=0, choices=(0, 1, 2),
@@ -286,7 +288,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nch", type=int, default=1,
                     help="number of channels: comma-separate -i/-b "
                          "(and optionally --crf) to encode N streams "
-                         "concurrently (ref app_main.c:153)")
+                         "concurrently, one encoder per thread in this "
+                         "process, all sharing one device "
+                         "(ref app_main.c:153)")
     ap.add_argument("--superres-mode", type=int, default=0,
                     choices=(0, 1),
                     help="super-resolution: 1 codes frames at the "
@@ -327,15 +331,25 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     # multi-channel (--nch; ref app_main.c:153-169): comma-separated
-    # -i/-b (and optionally --crf) run as independent encoder instances
-    # in threads (the reference's multi-instance process model)
+    # -i/-b run as independent encoder instances on threads of this
+    # process (one JAX process per device: a second process would find
+    # the device memory already reserved)
     if args.nch > 1:
         inputs = args.input.split(",")
         outputs = args.output.split(",")
         assert len(inputs) == len(outputs) == args.nch, \
             "--nch N needs N comma-separated -i and -b values"
-        import subprocess
-        procs = []
+        import threading
+        import traceback
+        rcs = [1] * args.nch
+
+        def channel(k, sub):
+            try:
+                rcs[k] = main(sub)
+            except Exception:
+                traceback.print_exc()
+
+        threads = []
         for k in range(args.nch):
             sub = list(argv)
 
@@ -347,12 +361,12 @@ def main(argv=None) -> int:
             repl(("-b", "--output"), outputs[k])
             i2 = sub.index("--nch")
             del sub[i2:i2 + 2]
-            # one encoder instance per process (the reference's channel
-            # model, ref app_main.c:153; process isolation also keeps
-            # the native engines independent)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "svt_av1_psy_tpu"] + sub))
-        return max(p.wait() for p in procs)
+            threads.append(threading.Thread(target=channel, args=(k, sub)))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return max(rcs)
 
     if args.qindex is None:
         args.qindex = crf_to_qindex(args.crf) if args.crf is not None \
@@ -360,10 +374,11 @@ def main(argv=None) -> int:
 
     if not args.no_device_search:
         from svt_av1_psy_tpu.utils.device import select_platform
-        plat = select_platform(args.device)
-        if plat == "cpu" and args.device == "auto":
-            print("device probe failed; using cpu backend",
-                  file=sys.stderr)
+        try:
+            select_platform(args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     from svt_av1_psy_tpu.bitstream.ivf import IvfWriter
     from svt_av1_psy_tpu.io.y4m import Y4mReader

@@ -3,7 +3,7 @@
 Equivalent of the reference's header emission in entropy_coding.c
 (svt_aom_encode_sps_av1, write_frame_header_av1 — ref:
 Source/Lib/Codec/entropy_coding.c) but organized as pure functions over two
-small parameter dataclasses. Only features the TPU encoder actually emits are
+small parameter dataclasses. Only features the encoder actually emits are
 written; every field follows the spec bit order exactly.
 """
 

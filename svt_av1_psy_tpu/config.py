@@ -10,7 +10,7 @@ Mirrors the reference's three coordinated config layers (SURVEY.md §5):
 Field names and semantics are kept identical to the reference so that a user of
 `--svtav1-params` / the FFmpeg plugin can move over without relearning anything.
 The *implementation* is a plain Python dataclass — no handle/ctor machinery; the
-TPU encoder is functional and the config is immutable once the Encoder is built.
+encoder is functional and the config is immutable once the Encoder is built.
 """
 
 from __future__ import annotations
@@ -260,15 +260,15 @@ class EncoderConfig:
     # --- Decode-speed oriented ----------------------------------------------------
     fast_decode: int = 0  # 0..2
 
-    # --- Platform / parallelism (TPU semantics; names kept for compat) ------------
+    # --- Platform / parallelism (names kept for compat) ---------------------------
     channel_id: int = 0
     active_channel_count: int = 1
-    # On TPU these size the host pipeline + device mesh instead of thread pools:
+    # These size the host pipeline instead of thread pools:
     level_of_parallelism: int = 0  # 0 auto; 1..6 frames-in-flight scaling
     logical_processors: int = 0
     pin_threads: int = 0
     target_socket: int = -1
-    use_cpu_flags: int = ~0 & 0xFFFFFFFF  # kept for API compat; no RTCD on TPU
+    use_cpu_flags: int = ~0 & 0xFFFFFFFF  # kept for API compat; no RTCD
 
     # --- Output / debug -------------------------------------------------------------
     stat_report: int = 0
@@ -602,7 +602,7 @@ def parse_parameter_string(cfg: EncoderConfig, params: str) -> EncoderConfig:
 # ---------------------------------------------------------------------------
 # Derived (post-validation) settings — mirrors set_param_based_on_input +
 # pieces of load_default_buffer_configuration_settings (enc_handle.c:734-1100),
-# re-targeted at TPU pipeline sizing rather than thread pools.
+# re-targeted at host pipeline sizing rather than thread pools.
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -648,7 +648,7 @@ def derive_settings(cfg: EncoderConfig) -> DerivedSettings:
         ip = cfg.intra_period_length
 
     if cfg.tile_columns == DEFAULT:
-        # auto-tiling: aim for ~2 tiles at 1080p, 8 at 4K (TPU: tiles are shard axes)
+        # auto-tiling: aim for ~2 tiles at 1080p, 8 at 4K (tiles are host walk threads)
         tc = max(0, int(math.log2(max(1, cfg.source_width // 1920))))
     else:
         tc = cfg.tile_columns

@@ -2,7 +2,7 @@
 
 Part of the in-repo conformance decoder (the role libaom's RefDecoder plays
 for the reference, ref: test/e2e_test/RefDecoder.cc). Parses the feature
-subset the TPU encoder emits plus what SVT-AV1 emits at simple settings;
+subset this encoder emits plus what SVT-AV1 emits at simple settings;
 asserts loudly on anything unsupported so tile parsing never silently
 desyncs.
 """

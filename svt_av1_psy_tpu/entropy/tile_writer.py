@@ -7,7 +7,7 @@ every normative neighbor-context array (partition ctx, mode/skip rows,
 per-plane packed coefficient contexts) so the emitted symbol+CDF sequence is
 exactly what a conforming decoder expects.
 
-One TileWriter per tile; tiles are independent (the TPU shard axis, SURVEY.md
+One TileWriter per tile; tiles are independent (the device shard axis, SURVEY.md
 §2.2 P4).
 """
 

@@ -7,7 +7,7 @@ the primary reference frame's params
 (ref entropy_coding.c:2958 write_global_motion_params,
 definitions.h:1963-1988 GM_* constants).
 
-TPU-native stance: the corner+RANSAC pipeline is replaced by a robust
+Design: the corner+RANSAC pipeline is replaced by a robust
 fit over the dense per-16x16 HME motion field the device already
 produces — a median/inlier-consensus translation (the dominant use of
 GM at fast presets). The field comes straight from
@@ -292,7 +292,7 @@ def gm_block_mv8(mat, mi_row: int, mi_col: int, w4: int, h4: int,
 def estimate_rotzoom(mv_field: np.ndarray, *, unit_mv8: int = 8,
                      block: int = 16, min_inlier_frac: float = 0.5):
     """LSQ ROTZOOM fit over the dense per-16x16 HME motion field
-    (TPU-native replacement for the reference's corner+RANSAC
+    (replacement for the reference's corner+RANSAC
     global_me.c pipeline, run on the field the device already
     produced). Model (px): mv_x = s*x + b*y + tx, mv_y = -b*x + s*y
     + ty. Two robust refinement rounds; returns the coded-precision

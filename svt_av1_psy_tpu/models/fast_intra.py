@@ -39,8 +39,8 @@ def _jitted_decide():
     from svt_av1_psy_tpu.ops.jax_backend import intra_decide_packed
 
     # packed single-buffer output: the result comes home in ONE
-    # device->host transfer (started asynchronously at dispatch time) —
-    # the eval TPU transport charges ~100ms fixed cost per fetched array
+    # device->host transfer, started asynchronously at dispatch time
+    # (whether that still pays on the GPU is ROADMAP A6)
     return jax.jit(intra_decide_packed, static_argnums=(2, 3))
 
 
@@ -63,22 +63,11 @@ def _jitted_hme():
     import jax
 
     from svt_av1_psy_tpu.ops.jax_backend import (hme_search, hme_search2,
-                                                 hme_search_pallas,
                                                  pack_mv_sad)
 
-    # SVT_HME_PALLAS=1 routes full-pel ME through the Pallas kernel
-    # (on-chip SAD scan; validated bit-identical to hme_search in
-    # tests/test_fast_path.py::test_pallas_hme_matches). On CPU the
-    # interpreter path is slower than the XLA fori version, so the
-    # kernel is opt-in off-TPU. SVT_HME_1LEVEL=1 falls back to the
-    # single-level +-24 px search.
-    if os.environ.get("SVT_HME_PALLAS") == "1":
-        interp = jax.default_backend() == "cpu"
-        base = functools.partial(hme_search_pallas, interpret=interp)
-    elif os.environ.get("SVT_HME_1LEVEL") == "1":
-        base = hme_search
-    else:
-        base = hme_search2
+    # SVT_HME_1LEVEL=1 falls back to the single-level +-24 px search
+    base = hme_search if os.environ.get("SVT_HME_1LEVEL") == "1" \
+        else hme_search2
 
     def packed(src, ref):
         return pack_mv_sad(*base(src, ref))
@@ -141,6 +130,8 @@ class FastIntraEncoder:
         import os
 
         from svt_av1_psy_tpu import native
+        from svt_av1_psy_tpu.utils.device import configure_compile_cache
+        configure_compile_cache()
         assert width % 2 == 0 and height % 2 == 0
         self.up_width = width
         self.superres_denom = superres_denom
@@ -405,7 +396,7 @@ class FastIntraEncoder:
             # on the host backend the decide program and the commit-walk
             # threads share the same cores: overlap oversubscribes and
             # slows the critical path (measured 2.05 -> 1.25 fps at
-            # 1080p). Overlap only pays when decide runs on-chip.
+            # 1080p). Overlap only pays when decide runs on a device.
             return
         ys = self._downscale_y(y)
         yp = _pad_to(np.asarray(ys), self.pah, self.paw)

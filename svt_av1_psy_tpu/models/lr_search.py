@@ -129,15 +129,17 @@ class LrDecision:
 
 class DeviceLrSearch:
     """Device-resident Wiener LR search (the rest_process.c search moved
-    onto the chip): per-plane tap solve + filtered-SSE evaluation run as
-    ONE jitted program per frame, packed into a single f32 transfer.
+    onto the device): per-plane tap solve + filtered-SSE evaluation run
+    as ONE jitted program per frame, packed into a single f32 transfer.
 
-    The numpy path (search_lr_frame below) spends ~1 s/frame at 1080p in
-    float64 full-plane basis stacking; the same math in f32 on the VPU is
-    ~ms, and the dispatch/finish split lets the search for frame N+1's
-    signalling ride under host work. Tap rounding may differ from the
-    float64 path by ±1 occasionally — the decision feeds normative
-    signalling either way (application stays spec-exact)."""
+    The numpy path (search_lr_frame below) does the same math in float64
+    on the host; the dispatch/finish split lets the device search for
+    frame N+1's signalling ride under host work. The Gram products are
+    pinned to full f32 precision (a GPU would otherwise take TF32). Tap
+    rounding may still differ from the float64 path by ±1 occasionally,
+    and a unit's on/off choice may flip where its two SSEs nearly tie —
+    the decision feeds normative signalling either way (application
+    stays spec-exact)."""
 
     def __init__(self, dims, bd: int = 8, unit_size=(64, 32, 32)):
         self.dims = [tuple(d) for d in dims]
@@ -172,8 +174,9 @@ class DeviceLrSearch:
             sl = (slice(3, -3), slice(3, -3))
             B = jnp.stack([b[sl].reshape(-1) for b in basis])
             rv = r[sl].reshape(-1)
-            G = B @ B.T
-            c = B @ rv
+            hp = jax.lax.Precision.HIGHEST
+            G = jnp.matmul(B, B.T, precision=hp)
+            c = jnp.matmul(B, rv, precision=hp)
             k = B.shape[0]
             sol = jnp.linalg.solve(G + jnp.eye(k) * 1e-3, c)
             taps = jnp.zeros(3)
@@ -191,21 +194,31 @@ class DeviceLrSearch:
                 out = out + taps[j] * (shift2(dgd, d, axis) - 2.0 * dgd)
             return out / 128.0
 
+        def bands(a, ys, xs):
+            rows = jnp.stack([a[y0:y1].sum(axis=0)
+                              for y0, y1 in zip(ys[:-1], ys[1:])])
+            return jnp.stack([rows[:, x0:x1].sum(axis=1)
+                              for x0, x1 in zip(xs[:-1], xs[1:])],
+                             axis=1).astype(jnp.float32)
+
         def unit_sums(err2, ys, xs):
-            c = jnp.pad(jnp.cumsum(jnp.cumsum(err2, 0), 1),
-                        ((1, 0), (1, 0)))
-            return (c[ys[1:, None], xs[None, 1:]]
-                    - c[ys[:-1, None], xs[None, 1:]]
-                    - c[ys[1:, None], xs[None, :-1]]
-                    + c[ys[:-1, None], xs[None, :-1]])
+            # exact int32 sums over the static unit bands, in 16-bit
+            # halves so no partial sum overflows up to 12 bits: every
+            # backend gets the same SSEs (the whole-plane f32 prefix sum
+            # this replaces was off by up to 3.3e-4 of a unit's SSE on a
+            # 1080p luma plane, above the 1e-4 tie margin)
+            return (bands(err2 >> 16, ys, xs) * 65536.0
+                    + bands(err2 & 0xFFFF, ys, xs))
 
         grids = self.grids
 
         def program(*planes6):
             outs = []
             for plane in range(3):
-                dgd = planes6[plane].astype(jnp.float32)
-                src = planes6[3 + plane].astype(jnp.float32)
+                dgd_i = planes6[plane].astype(jnp.int32)
+                src_i = planes6[3 + plane].astype(jnp.int32)
+                dgd = dgd_i.astype(jnp.float32)
+                src = src_i.astype(jnp.float32)
                 chroma = plane > 0
                 ht = solve_dir(dgd, src, 1, chroma)
                 dh = filt_dir(dgd, ht, 1)
@@ -213,10 +226,9 @@ class DeviceLrSearch:
                 F = filt_dir(dh, vt, 0)
                 Fq = jnp.clip(jnp.round(F), 0.0, hi)
                 _, _, ys, xs = grids[plane]
-                ysj = jnp.asarray(np.asarray(ys))
-                xsj = jnp.asarray(np.asarray(xs))
-                sse_n = unit_sums((dgd - src) ** 2, ysj, xsj)
-                sse_w = unit_sums((Fq - src) ** 2, ysj, xsj)
+                sse_n = unit_sums((dgd_i - src_i) ** 2, ys, xs)
+                sse_w = unit_sums((Fq.astype(jnp.int32) - src_i) ** 2,
+                                  ys, xs)
                 outs.append(jnp.concatenate(
                     [vt, ht, sse_n.reshape(-1), sse_w.reshape(-1)]))
             return jnp.concatenate(outs)

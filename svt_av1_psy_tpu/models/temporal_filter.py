@@ -3,7 +3,7 @@
 The key-frame filtering pass of the reference (ref
 Source/Lib/Codec/temporal_filtering.c: svt_av1_init_temporal_filtering
 :4064, medium planewise filter :1021) re-designed for the two-phase
-architecture: the device HME (ops/jax_backend.hme_search) aligns each
+architecture: the device HME (ops/jax_backend.hme_search2) aligns each
 neighbor source frame to the center frame per 16x16 block; the native MC
 kernel produces the aligned predictions; blocks blend with
 error-adaptive weights (high-error blocks fall back to the center). The
@@ -21,7 +21,9 @@ def _align_plane(center: np.ndarray, neigh: np.ndarray, mv16: np.ndarray,
     """MC-align `neigh` to `center` with per-16x16 (luma units) full-pel
     MVs — a pure clamped gather, fully vectorized (the per-block
     mc_block loop cost ~4.5 s/plane-set at 1080p; this is ~30 ms).
-    Returns the aligned plane (int32) + per-block mean-SSE map."""
+    Returns the aligned plane (int32) + per-block mean-SSE map (the
+    exact mean, as the device filter ops/jax_backend._tf_align takes
+    it)."""
     H, W = center.shape
     bs = 16 >> sub
     n16r, n16c = mv16.shape[:2]
@@ -41,7 +43,7 @@ def _align_plane(center: np.ndarray, neigh: np.ndarray, mv16: np.ndarray,
     cnt[:H, :W] = 1
     bsum = d2p.reshape(n16r, bs, n16c, bs).sum((1, 3))
     bcnt = np.maximum(cnt.reshape(n16r, bs, n16c, bs).sum((1, 3)), 1)
-    return out, bsum // bcnt
+    return out, bsum / bcnt
 
 
 def temporal_filter(frames, center_idx: int, strength: int = 1,

@@ -8,8 +8,8 @@ behavior of the reference's variance boost
  rc_process.c:1516 svt_variance_adjust_qp,
  rc_process.c:1675 normalize_sb_delta_q) re-derived as vectorized array
 ops over all superblocks at once: one reshape/reduction for the 8x8
-variances and one sort over (n_sb, 64) for the octile statistics — the
-natural TPU formulation rather than the reference's per-SB scalar loop.
+variances and one sort over (n_sb, 64) for the octile statistics — a
+vectorized formulation rather than the reference's per-SB scalar loop.
 
 Defaults match the reference CLI: strength 2, octile 6, regular curve
 (ref enc_settings.c:1098-1099).

@@ -12,6 +12,7 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import threading
 
 import numpy as np
 
@@ -26,6 +27,9 @@ _SO = _NATIVE / "libtpuec.so"
 _lib = None
 _txfm_ready = False
 _kept_alive = []
+# guards the one-time build/load and table setup: encoders on several
+# threads (the CLI's --nch channels) may all reach them at once
+_init_lock = threading.RLock()
 
 
 class TxbCdfs(ctypes.Structure):
@@ -57,9 +61,14 @@ def _build():
 
 
 def get_lib():
-    global _lib
     if _lib is not None:
         return _lib
+    with _init_lock:
+        return _lib if _lib is not None else _load_lib()
+
+
+def _load_lib():
+    global _lib
     # content-hash rebuild check: mtimes are unreliable after checkout
     stamp = _NATIVE / ".build_hash"
     if not _SO.exists() or not stamp.exists() or \
@@ -300,22 +309,13 @@ def make_inter_cdfs(fc) -> InterCdfs:
 
 
 _commit_ready = False
-_init_lock = None
-
-
-def _get_init_lock():
-    global _init_lock
-    if _init_lock is None:
-        import threading
-        _init_lock = threading.Lock()
-    return _init_lock
 
 
 def _ensure_commit(lib):
     global _commit_ready
     if _commit_ready:
         return
-    with _get_init_lock():
+    with _init_lock:
         if _commit_ready:
             return
         _ensure_commit_locked(lib)
@@ -1090,7 +1090,7 @@ def ensure_txfms():
     lib = get_lib()
     if _txfm_ready:
         return lib
-    with _get_init_lock():
+    with _init_lock:
         if _txfm_ready:
             return lib
         return _ensure_txfms_locked(lib)

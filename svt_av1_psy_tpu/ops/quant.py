@@ -4,8 +4,8 @@ Forward quantizer mirrors the reference's quantize_b path
 (ref: Source/Lib/Codec/full_loop.c svt_aom_quantize_b_c:78 and the
 av1_build_quantizer table construction in Source/Lib/Codec/av1_quantize.c);
 dequant is decoder-normative (spec 7.12.3). All functions are batched numpy
-over arbitrary leading dims; the JAX path reuses the same arithmetic (integer
-ops vectorize cleanly on the VPU).
+over arbitrary leading dims; the JAX path (ops/jax_backend.quantize_b_batch)
+reuses the same integer arithmetic.
 
 PSY hook: `sharpness_bias` shrinks the zero-bin and grows rounding exactly the
 way the PSY fork biases qzbin_factor/rounding for --sharpness > 0

@@ -6,13 +6,12 @@ path matches the reference encoder's integer transforms so coefficients live
 in the standard AV1 coefficient domain (ref: Source/Lib/Codec/transforms.c,
 inv_transforms.c).
 
-Design (TPU-first): every 1-D butterfly network is DATA
-(constants/txfm_stages.npz, extracted by tools/gen_txfm_stages.py) run by one
-generic vectorized stage-machine. The same tables drive the numpy reference
-here and the batched JAX/Pallas path — each stage is two gathers + fused
-elementwise math over a batch of blocks, which XLA maps onto the VPU. The RD
-*search* path uses float matmul approximations on the MXU
-(ops/transforms_mxu.py); this module is the exact commit path.
+Design: every 1-D butterfly network is DATA (constants/txfm_stages.npz,
+extracted by tools/gen_txfm_stages.py) run by one generic vectorized
+stage-machine. The same tables drive the numpy reference here, the batched
+JAX path (ops/jax_backend.py) and the native C walk — each stage is two
+gathers + fused elementwise integer math over a batch of blocks. This module
+is the exact commit path.
 
 Everything is batched: arrays carry leading batch dimensions.
 """
@@ -113,7 +112,7 @@ def _run_stages(x, name: str, cos_bit: int, clamp_bits, xp=np,
     """Run an extracted butterfly network. x: (..., N) integer array.
 
     wdtype: the working integer dtype. int64 for the numpy trusted path;
-    int32 for the TPU/JAX path (products stay within int32 thanks to the
+    int32 for the JAX path (products stay within int32 thanks to the
     normative stage-range clamps — the same bound the reference's AVX2
     int32 lanes rely on, ref: Source/Lib/ASM_AVX2 inv/fwd txfm)."""
     t = _stage_tables()

@@ -155,8 +155,7 @@ int main(void) {
                     f"-I{_ROOT}/native", f"-L{_ROOT}/native",
                     "-lsvtav1_tpu", f"-Wl,-rpath,{_ROOT}/native"],
                    check=True)
-    env = dict(os.environ, PYTHONPATH=_ROOT, SVT_TPU_PLATFORM="cpu",
-               JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=_ROOT, JAX_PLATFORMS="cpu")
     r = subprocess.run([str(exe)], capture_output=True, text=True,
                        timeout=300, env=env)
     assert r.returncode == 0, (r.returncode, r.stdout, r.stderr)

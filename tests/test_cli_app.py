@@ -25,7 +25,7 @@ def clip(tmp_path_factory):
 
 
 def _run(args, timeout=300):
-    env = dict(os.environ, SVT_TPU_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.abspath(_ROOT))
     return subprocess.run([sys.executable, "-m", "svt_av1_psy_tpu"] + args,
                           capture_output=True, text=True, timeout=timeout,

@@ -1,6 +1,6 @@
 """Device (JAX/XLA) vs numpy trusted-path equivalence.
 
-The TPU analog of the reference's C-vs-SIMD bit-exactness harness
+The device analog of the reference's C-vs-SIMD bit-exactness harness
 (ref: test/SadTest.cc pattern — randomized buffers, exact compare,
 SURVEY.md §4.1). Runs on the virtual CPU backend in CI.
 """

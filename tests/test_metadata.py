@@ -155,7 +155,7 @@ def test_dolby_vision_rpu_per_frame(tmp_path):
             f.write(len(p).to_bytes(4, "little"))
             f.write(p)
     out = tmp_path / "o.ivf"
-    env = dict(os.environ, SVT_TPU_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.abspath(_ROOT))
     r = subprocess.run([_sys.executable, "-m", "svt_av1_psy_tpu",
                         "-i", str(clip), "-b", str(out),

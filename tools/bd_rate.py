@@ -222,5 +222,5 @@ def main():
 
 if __name__ == "__main__":
     from svt_av1_psy_tpu.utils.device import select_platform
-    select_platform(os.environ.get("SVT_BENCH_DEVICE", "auto"))
+    select_platform()
     raise SystemExit(main())

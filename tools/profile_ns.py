@@ -26,10 +26,10 @@ def main():
     W, H = 1920, 1080
     frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(n)]
 
-    # same platform/probe/persistent-jit-cache setup as bench.py —
-    # without it every run pays full device compiles (~40s+)
+    # same platform choice as bench.py (the GPU unless JAX_PLATFORMS
+    # names cpu; no fallback)
     from svt_av1_psy_tpu.utils.device import select_platform
-    select_platform(os.environ.get("SVT_BENCH_DEVICE", "auto"))
+    select_platform()
 
     from svt_av1_psy_tpu import native
     from svt_av1_psy_tpu.api import Encoder
